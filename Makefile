@@ -6,7 +6,7 @@ PYTHON ?= python
 # Two invocations: a single very long pytest process (~450 XLA CPU
 # compilations) has twice segfaulted inside XLA's compiler late in the
 # run (see CLAUDE.md); splitting bounds per-process compilation count.
-# Every test passes in either half and in the combined TPU battery.
+# Every test passes in either half.
 test:
 	$(PYTHON) -m pytest tests/test_[a-i]*.py -q
 	$(PYTHON) -m pytest tests/test_[j-z]*.py -q

@@ -1,4 +1,4 @@
-"""common_tpu — TPU-native probabilistic-programming foundation.
+"""common_tpu — probabilistic-programming foundation for accelerators.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 ``datamicroscopes/common`` (reference: github.com/datamicroscopes/common):
@@ -6,7 +6,7 @@ Dirichlet-process mixture bookkeeping, conjugate exponential-family
 likelihoods, MCMC kernels (collapsed Gibbs, blocked/uncollapsed Gibbs,
 slice, grid hyper-Gibbs, HMC/NUTS, SMC, SVI), posterior query utilities,
 and exact-enumeration test machinery — all as pure functions over pytrees
-with static shapes, designed for `jit`/`vmap`/`shard_map` over TPU meshes.
+with static shapes, designed for `jit`/`vmap`/`shard_map` over device meshes.
 
 Reference layer map (see SURVEY.md and README.md):
   - likelihoods/    <- distributions lib + common:include/microscopes/models/
@@ -24,7 +24,7 @@ Reference layer map (see SURVEY.md and README.md):
   - relational/     <- irm sibling repo (IRM states + kernels)
   - topic/          <- lda sibling repo (HDP-LDA)
   - parallel/       <- (new) chain/data mesh sharding
-  - ops/            <- (new) Pallas TPU kernels
+  - ops/            <- (new) hand-written Pallas GPU kernel (fused assign)
   - io/             <- schema.proto serialization -> pytree checkpoints
   - native/         <- C++ host-side oracle machinery (ctypes)
   - utils/          <- diagnostics (ESS/R-hat), profiling

@@ -1,4 +1,4 @@
-"""Data layer — TPU-native rebuilds of the reference's three dataviews
+"""Data layer — JAX rebuilds of the reference's three dataviews
 (recarray tabular, variadic ragged, sparse N-d relation) as static-shape
 device-array layouts shardable over a mesh `data` axis."""
 

@@ -5,7 +5,7 @@ Reference analog: ``common:include/microscopes/common/recarray/dataview.hpp``
 over numpy structured/masked arrays, iterated row-by-row by the C++ Gibbs
 loop.
 
-TPU-native design (SURVEY.md §2.2 item 4): columns become a tuple of
+Vectorized design (SURVEY.md §2.2 item 4): columns become a tuple of
 ``(values [N, …], mask [N])`` device arrays — the layout every kernel in
 :mod:`common_tpu.kernels` consumes directly (no row iteration; kernels
 scan/vmap the row axis).  Masked-array and structured-array ingestion is

@@ -6,7 +6,7 @@ Reference analog:
 N-dimensional (usually 2-D) relation with their index tuples, supporting
 dense-with-mask and sparse backings.
 
-TPU-native design: observed cells become COO triples with static padding —
+Vectorized design: observed cells become COO triples with static padding —
 ``(indices [M_pad, ndim] int32, values [M_pad], mask [M_pad])`` — so
 relation likelihood scans are flat vmaps/segment ops over the cell axis,
 shardable along cells.

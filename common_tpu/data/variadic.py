@@ -3,7 +3,7 @@
 Reference analog: ``common:include/microscopes/common/variadic/dataview.hpp``
 + ``_dataview.pyx`` (`numpy_dataview(list_of_arrays)`) — the LDA data layer.
 
-TPU-native design: ragged rows become a CSR-style flat layout with static
+Vectorized design: ragged rows become a CSR-style flat layout with static
 shapes — ``(tokens [T_pad], row_ptr [N+1], token_mask [T_pad])`` — so
 per-document reductions are `segment_sum`s over a flat token axis and the
 whole corpus shards along tokens/documents.  Padding tokens carry mask 0.

@@ -13,7 +13,7 @@ state families:
   (kernels/smc.py — a MixtureState with a leading particle axis plus
   log-weights, saved via ``extra``).
 
-TPU-native design (SURVEY.md §5.4): each state is a registered-dataclass
+Vectorized design (SURVEY.md §5.4): each state is a registered-dataclass
 pytree, so persistence is generic — data fields are walked (dicts /
 tuples / arrays), each array leaf lands in an npz archive under its path,
 static fields and the container skeleton go into a JSON header.  `extra`

@@ -11,7 +11,7 @@ cheap and modes are found fast; by the end the chain is exact collapsed
 Gibbs on the full data, so the stationary distribution is the true
 posterior.
 
-TPU-native design: one `lax.scan` over anneal steps; each step's body is
+Vectorized design: one `lax.scan` over anneal steps; each step's body is
 an inner scan over exactly ``add_per_step + resample_per_step`` rows
 through the same fused remove→score→sample→add row step as
 kernels/gibbs.py (static shapes; a row with assignment −1 makes

@@ -1,8 +1,8 @@
-"""Blocked (uncollapsed) Gibbs — the TPU-parallel sweep kernel.
+"""Blocked (uncollapsed) Gibbs — the data-parallel sweep kernel.
 
 No reference analog: the reference's only assignment kernel is the
 sequential collapsed Gibbs loop (kernels:gibbs.pyx).  This kernel is the
-TPU-native performance path promised in SURVEY.md §7: a truncated
+accelerator performance path promised in SURVEY.md §7: a truncated
 stick-breaking DP mixture (Ishwaran & James blocked Gibbs; cf. the
 parallel-DP literature in PAPERS.md) in which *every row is resampled in
 parallel*:
@@ -14,7 +14,7 @@ parallel*:
                                log w = log v + cumΣ log(1−v)  (CRP analog);
                                fixed-K: w ~ Dirichlet(α + n);
   3. score                     [N, K] log-lik table via `logpdf_batch`
-                               (matmul-formulated per likelihood → MXU);
+                               (matmul-formulated per likelihood);
   4. assign                    per-row Gumbel-argmax categorical draws;
   5. restat                    counts + suffstats rebuilt by segment-sums /
                                per-cluster matmuls (`stats_from_assignments`).
@@ -34,6 +34,7 @@ import jax
 import jax.numpy as jnp
 
 from common_tpu import state as state_mod
+from common_tpu.likelihoods.niw import scatter_product
 from common_tpu.state import MixtureState
 
 
@@ -147,17 +148,16 @@ def assign(state: MixtureState, data, key) -> MixtureState:
 def _chain_score_table(mu, prec, logdet, logw, x):
     """[N, C, K] blocked-Gibbs score table for C chains sharing one X.
 
-    The vmapped per-chain path issues C·K tiny [N, D] @ [D, D] matmuls —
-    at chain-scaling shapes (D = K = 16) each uses a sliver of the MXU
-    and throughput stops scaling in C (round-3 VERDICT weak item 1,
-    efficiency 0.43).  Here the Gaussian quadratic form is EXPANDED,
+    The vmapped per-chain path issues C·K small [N, D] @ [D, D] matmuls,
+    which at small D (D = K = 16) keep the matrix units nearly idle.  Here
+    the Gaussian quadratic form is EXPANDED,
         −½(x−μ)ᵀP(x−μ) = −½ xᵀPx + xᵀPμ − ½ μᵀPμ,    P = Σ⁻¹,
     so scoring all C·K clusters is two WIDE matmuls against shared
     row features:  XX @ Pᵀ  with XX = [N, D²] the once-per-call outer-
     product features, and  X @ Qᵀ  — K-dimension C·K instead of C
     separate scans.  precision="float32" on both: the expansion has a
-    genuine cancellation (xᵀPx ≈ μᵀPμ for tight clusters) that the TPU's
-    default single-pass-bf16 matmul turns into ~1-nat logp errors.
+    genuine cancellation (xᵀPx ≈ μᵀPμ for tight clusters) that a reduced-
+    precision (TF32 or bf16) matmul amplifies into logp errors.
 
     mu [C, K, D], prec [C, K, D, D], logdet [C, K] (log|Sigma|) — the
     layout `sample_params_prec` returns (vmapped over chains).
@@ -188,10 +188,7 @@ _FALLBACK_WARNED = False
 
 
 def sweep_chains(states: MixtureState, data, key,
-                 d_max_xx: int = 64, fused: bool = False,
-                 tile_n: int = 1024, k_tile: int = 8,
-                 interpret: bool = False,
-                 assume_dense_mask: bool = False,
+                 d_max_xx: int = 64,
                  xx_budget_bytes: float = 2e9) -> MixtureState:
     """One blocked sweep of C stacked chains sharing one dataset.
 
@@ -202,39 +199,21 @@ def sweep_chains(states: MixtureState, data, key,
     cluster scores come from two wide matmuls over shared row features,
     and the C suffstat rebuilds are two more ([N,CK]ᵀ @ X and
     [N,CK]ᵀ @ XX) — the chain axis lands in the matmul K-dimension
-    instead of C separate tiny-matmul scans, which is what restores
-    near-linear on-chip chain scaling (round-3 VERDICT item 2).
+    instead of C separate small-matmul scans.
 
-    Requirements: a single `niw` feature, and — for the wide-matmul
-    (non-fused) path — D² row features affordable: D <= d_max_xx AND
-    N·D²·4 bytes <= xx_budget_bytes (the [N, D²] outer-product feature
-    matrix is materialized for scoring; at D=64 it costs 16 KB/row — 16 GB
-    at 1M rows, an HBM OOM the vmapped fallback would not hit).  Anything
-    else falls back to a vmapped `sweep` (correct, but without the
-    wide-matmul scaling fix) with a one-time warning, since the fallback
-    silently drops `fused` and the tuning kwargs.
-
-    fused=True (Pallas multi-chain kernel) has NO D <= d_max_xx limit —
-    the kernel streams X and never builds [N, D²]; at D=256 (the headline
-    shape) it is the ONLY multi-chain fast path.  Its restat switches to
-    per-chain scan matmuls when [N, D²] is over budget.
-
-    fused=True routes score+Gumbel+per-chain-argmax through the Pallas
-    multi-chain kernel (ops/gaussian_assign.fused_gaussian_assign_chains)
-    — X streams from HBM once for all chains and the [N, C, K] logp /
-    Gumbel tables never materialize.  assume_dense_mask=True additionally
-    skips the masked-row prior-fallback pass (safe when the mask is known
-    all-ones, e.g. the bench tiers); with False the fallback costs one
-    [N, C, K] Gumbel+argmax pass.  interpret=True runs the kernel through
-    the Pallas interpreter for CPU tests (its PRNG is stubbed — sampler
-    DISTRIBUTION is only meaningful on a real TPU).
+    Requirements: a single `niw` feature and D² row features affordable:
+    D <= d_max_xx AND N·D²·4 bytes <= xx_budget_bytes (the [N, D²]
+    outer-product feature matrix is materialized; at D=64 it costs
+    16 KB/row — 16 GB at 1M rows).  Anything else (e.g. the 1M×256
+    headline shape) runs vmapped per-chain `sweep`s, with a one-time
+    warning.
     """
     global _FALLBACK_WARNED
     C = states.counts.shape[0]
     if states.lik_names == ("niw",):
         _n, _d = data[0][0].shape[-2], data[0][0].shape[-1]
         xx_bytes = 4.0 * _n * _d * _d
-        wide_ok = fused or (_d <= d_max_xx and xx_bytes <= xx_budget_bytes)
+        wide_ok = _d <= d_max_xx and xx_bytes <= xx_budget_bytes
     else:
         _d, xx_bytes, wide_ok = None, 0.0, False
     if not wide_ok:
@@ -242,12 +221,10 @@ def sweep_chains(states: MixtureState, data, key,
             import warnings
 
             warnings.warn(
-                f"sweep_chains: falling back to vmapped per-chain sweeps "
+                f"sweep_chains: running vmapped per-chain sweeps "
                 f"(lik={states.lik_names}, D={_d}, [N,D²] "
                 f"{xx_bytes/1e9:.1f} GB vs budget "
-                f"{xx_budget_bytes/1e9:.1f} GB); `fused` and tuning "
-                f"kwargs are ignored on this path. Pass fused=True for "
-                f"the Pallas multi-chain kernel (no D limit).",
+                f"{xx_budget_bytes/1e9:.1f} GB)",
                 stacklevel=2,
             )
             _FALLBACK_WARNED = True
@@ -275,211 +252,71 @@ def sweep_chains(states: MixtureState, data, key,
         )  # [C, K]
 
     m = jnp.asarray(mask, x.dtype)
-    if fused:
-        # Pallas path: X streams once for ALL chains; score, Gumbel and
-        # per-chain argmax never touch HBM (kills the [N, C, K]
-        # elementwise passes that cap scaling — BENCH_NOTES round 4).
-        # `minv` (the Bartlett precision square root) plays binv:
-        # ‖minv (x−μ)‖² is the same Mahalanobis form.
-        from common_tpu.ops.gaussian_assign import (
-            fused_gaussian_assign_chains,
-        )
+    logp = _chain_score_table(
+        thetas["mu"], thetas["prec"], thetas["logdet"], logw, x
+    )
+    g = jax.random.gumbel(kz, (N, C, K), logp.dtype)
+    z = jnp.argmax(logp + g, axis=-1).astype(jnp.int32)   # [N, C]
+    # fully-masked rows: assign from the weights alone
+    z_prior = jnp.argmax(logw[None, :, :] + g, axis=-1).astype(jnp.int32)
+    z = jnp.where(m[:, None] > 0, z, z_prior)
 
-        base = (
-            logw
-            - 0.5 * thetas["logdet"]
-            - 0.5 * D * jnp.log(2.0 * jnp.pi)
-        ).reshape(C * K)
-        seed = jax.random.randint(kz, (), 0, jnp.iinfo(jnp.int32).max)
-        z = fused_gaussian_assign_chains(
-            x, thetas["mu"].reshape(C * K, D),
-            thetas["minv"].reshape(C * K, D, D), base, seed, C,
-            tile_n=tile_n, k_tile=k_tile, interpret=interpret,
-        ).T                                                   # [N, C]
-        if not assume_dense_mask:
-            g = jax.random.gumbel(jax.random.fold_in(kz, 1), (N, C, K))
-            z_prior = jnp.argmax(
-                logw[None, :, :] + g, axis=-1
-            ).astype(jnp.int32)
-            z = jnp.where(m[:, None] > 0, z, z_prior)
-    else:
-        logp = _chain_score_table(
-            thetas["mu"], thetas["prec"], thetas["logdet"], logw, x
-        )
-        g = jax.random.gumbel(kz, (N, C, K), logp.dtype)
-        z = jnp.argmax(logp + g, axis=-1).astype(jnp.int32)   # [N, C]
-        # fully-masked rows: assign from the weights alone
-        z_prior = jnp.argmax(
-            logw[None, :, :] + g, axis=-1
-        ).astype(jnp.int32)
-        z = jnp.where(m[:, None] > 0, z, z_prior)
-
-    if xx_bytes <= xx_budget_bytes:
-        # restat: all C chains in two wide matmuls against shared (X, XX)
-        onehot = (z[:, :, None] == jnp.arange(K)[None, None, :]).astype(
-            x.dtype
-        )
-        counts = jnp.sum(onehot, axis=0).astype(jnp.int32)    # [C, K]
-        w = (onehot * m[:, None, None]).reshape(N, C * K)
-        n_stat = jnp.sum(w, axis=0).reshape(C, K)
-        sum_x = jnp.matmul(w.T, x, precision="float32").reshape(C, K, D)
-        xx = jnp.einsum("nd,ne->nde", x, x).reshape(N, D * D)
-        # default precision: statistically benign here (see the numerics
-        # note in likelihoods/niw.py stats_from_assignments — no
-        # cancellation in a nonnegative-weighted sum)
-        sum_xxT = jnp.matmul(w.T, xx).reshape(C, K, D, D)
-        sum_xxT = 0.5 * (sum_xxT + jnp.swapaxes(sum_xxT, -1, -2))
-        stats = {"n": n_stat, "sum_x": sum_x, "sum_xxT": sum_xxT}
-    else:
-        # big-D restat (fused path at the 1M×256 headline): per-chain
-        # scan-matmul suffstats — never materializes [N, D²]
-        stats = jax.vmap(
-            lambda h, zc: lik.stats_from_assignments(h, x, mask, zc, K)
-        )(states.hypers[0], z.T)
-        counts = jax.vmap(
-            lambda zc: jax.ops.segment_sum(
-                jnp.ones_like(zc), zc, num_segments=K
-            )
-        )(z.T).astype(jnp.int32)
+    # restat: all C chains in two wide matmuls against shared (X, XX)
+    onehot = (z[:, :, None] == jnp.arange(K)[None, None, :]).astype(x.dtype)
+    counts = jnp.sum(onehot, axis=0).astype(jnp.int32)    # [C, K]
+    w = (onehot * m[:, None, None]).reshape(N, C * K)
+    n_stat = jnp.sum(w, axis=0).reshape(C, K)
+    sum_x = jnp.matmul(w.T, x, precision="float32").reshape(C, K, D)
+    xx = jnp.einsum("nd,ne->nde", x, x).reshape(N, D * D)
+    sum_xxT = scatter_product(w, xx).reshape(C, K, D, D)
+    sum_xxT = 0.5 * (sum_xxT + jnp.swapaxes(sum_xxT, -1, -2))
+    stats = {"n": n_stat, "sum_x": sum_x, "sum_xxT": sum_xxT}
     return dataclasses.replace(
         states, assignments=z.T, counts=counts, stats=(stats,)
     )
 
 
 # ---------------------------------------------------------------------------
-# Pallas-fused fast path (single-feature NIW)
+# fused fast path (single-feature NIW): score + Gumbel + argmax in one kernel
 # ---------------------------------------------------------------------------
-@partial(jax.jit, static_argnames=("tile_n", "k_tile", "interpret",
-                                   "fused_restat"))
-def sweep_fused(state: MixtureState, data, key, tile_n: int = 1024,
-                k_tile: int = 16, interpret: bool = False,
-                fused_restat: bool = True) -> MixtureState:
-    """Blocked sweep with the Pallas fused score+Gumbel+argmax kernel.
+@partial(jax.jit, static_argnames=("interpret",))
+def sweep_fused(state: MixtureState, data, key,
+                interpret: bool = False) -> MixtureState:
+    """`sweep` with the [N, K] score table fused away (ops/gaussian_assign.py).
 
-    Same sampler as `sweep`, but the [N, K] score table never touches HBM
-    and, with fused_restat, the scatter-matrix rebuild streams X once per
-    cluster tile instead of once per cluster (ops/suffstat.py).
-    Tile tuning at the 1M x 256 K=64 headline (measured): k_tile
-    8 → 4.6, 16 → 5.46, **24 → 5.56 sweeps/s** (round-4 3-rep A/B);
-    k_tile=32, tile_n=2048+ and tile_n=4096 are slower or exceed v5e
-    scoped-VMEM/compile limits.  The conservative default stays 16;
-    perf-critical callers pass k_tile=24.  Supported
-    models: a single ``niw`` feature (the headline 1M-row dense-Gaussian
-    configuration; ops/gaussian_assign.py) or a single ``bbv`` feature
-    (config-2 binary matrices; the linear-score kernel
-    ops/linear_assign.py).  Both the DP (stick-breaking) and fixed-K
-    (Dirichlet) weight paths are supported.  Other models use `sweep`.
+    Draws θ, the weights and the Gumbel noise with the same keys as
+    `sweep`, and gives masked rows the same prior assignment from the
+    shared noise, so `sweep_fused(s, d, k)` and `sweep(s, d, k)` agree row
+    for row up to ties and the kernel's TF32 precision.  Supports a single
+    ``niw`` feature, with DP (stick-breaking) or fixed-K (Dirichlet)
+    weights; other models use `sweep` (runner kernel ``assign_blocked``).
+    `interpret=True` runs the kernel through the Pallas interpreter.
     """
-    if state.lik_names == ("bbv",):
-        return _sweep_fused_bbv(state, data, key, tile_n, k_tile, interpret)
     if state.lik_names != ("niw",):
         raise ValueError(
-            "sweep_fused supports a single niw or bbv feature, got "
-            f"{state.lik_names}"
+            "sweep_fused supports a single niw feature, got "
+            f"{state.lik_names}; use blocked.sweep (runner kernel "
+            "'assign_blocked')"
         )
     from jax.scipy.linalg import solve_triangular
 
     from common_tpu.ops.gaussian_assign import fused_gaussian_assign
 
     x, mask = data[0]
-    d = x.shape[-1]
-    kth, kv, kz, km = jax.random.split(key, 4)
-    lik = state.likelihoods()[0]
-    theta = lik.sample_params(kth, state.hypers[0], state.stats[0])
-    mu, chol = theta["mu"], theta["cov_chol"]  # [K, D], [K, D, D]
+    n, d = x.shape
+    thetas, logw, _ = sweep_parts(state, data, key)
+    mu, chol = thetas[0]["mu"], thetas[0]["cov_chol"]  # [K, D], [K, D, D]
     eye = jnp.eye(d, dtype=chol.dtype)
     binv = jax.vmap(lambda c: solve_triangular(c, eye, lower=True))(chol)
     logdet = 2.0 * jnp.sum(
         jnp.log(jnp.diagonal(chol, axis1=-2, axis2=-1)), axis=-1
     )
-    if state.fixed:
-        logw = dirichlet_log_weights(kv, state.counts, state.cluster_hp["alphas"])
-    else:
-        logw = stick_break_log_weights(
-            kv, state.counts, state.cluster_hp["alpha"].astype(jnp.float32)
-        )
     base = logw - 0.5 * logdet - 0.5 * d * jnp.log(2.0 * jnp.pi)
-    seed = jax.random.randint(kz, (), 0, jnp.iinfo(jnp.int32).max)
-    z = fused_gaussian_assign(
-        x, mu, binv, base, seed, tile_n=tile_n, k_tile=k_tile,
-        interpret=interpret,
+    g = jax.random.gumbel(
+        jax.random.fold_in(key, 2), (n, logw.shape[0]), logw.dtype
     )
+    z = fused_gaussian_assign(x, mu, binv, base, g, interpret=interpret)
     # fully-masked rows carry no likelihood: assign from the weights alone
-    g = jax.random.gumbel(km, (x.shape[0], logw.shape[0]))
     z_prior = jnp.argmax(logw[None, :] + g, axis=-1).astype(jnp.int32)
     z = jnp.where(jnp.asarray(mask) > 0, z, z_prior)
-    if not fused_restat:
-        return restat(state, data, z, [theta])
-
-    # fused rebuild: the O(N·K·D²) scatter matrix comes from the Pallas
-    # restat kernel (X streamed K/K_TILE times instead of K times); the
-    # cheap O(N·D) leaves (n, sum_x) and counts stay in XLA.
-    from common_tpu.ops.suffstat import fused_scatter_stats
-
-    K = state.k_max
-    counts = jax.ops.segment_sum(
-        jnp.ones_like(z), z, num_segments=K
-    ).astype(jnp.int32)
-    m = jnp.asarray(mask, x.dtype)
-    zi = jnp.where(m > 0, z, K)  # masked rows: counted, not accumulated
-    onehot = (zi[:, None] == jnp.arange(K)[None, :]).astype(x.dtype)
-    n_stat = jnp.sum(onehot, axis=0)
-    # f32-accurate: the TPU default matmul is single-pass bf16 (measured)
-    sum_x = jnp.matmul(onehot.T, x, precision="float32")
-    sum_xxT = fused_scatter_stats(
-        x, zi, K, tile_n=tile_n, k_tile=k_tile, interpret=interpret
-    )
-    stats = {"n": n_stat, "sum_x": sum_x, "sum_xxT": sum_xxT}
-    return dataclasses.replace(
-        state, assignments=z, counts=counts, stats=(stats,)
-    )
-
-
-def _sweep_fused_bbv(state: MixtureState, data, key, tile_n, k_tile,
-                     interpret):
-    """bbv fused path: linear-score Pallas assign + matmul restat.
-
-    Score is affine in the row (log p(x|p_k) = x·logit(p_k) + Σ log(1−p_k))
-    so the fused kernel is ops/linear_assign.py; the restat for bbv is a
-    single [K, N] × [N, D] matmul (no scatter-matrix kernel needed).
-    """
-    from common_tpu.ops.linear_assign import fused_linear_assign
-
-    x, mask = data[0]
-    kth, kv, kz, km = jax.random.split(key, 4)
-    lik = state.likelihoods()[0]
-    theta = lik.sample_params(kth, state.hypers[0], state.stats[0])
-    p = theta["p"]  # [K, D]
-    lp = jnp.log(p)
-    lq = jnp.log1p(-p)
-    if state.fixed:
-        logw = dirichlet_log_weights(kv, state.counts, state.cluster_hp["alphas"])
-    else:
-        logw = stick_break_log_weights(
-            kv, state.counts, state.cluster_hp["alpha"].astype(jnp.float32)
-        )
-    base = logw + jnp.sum(lq, axis=-1)
-    seed = jax.random.randint(kz, (), 0, jnp.iinfo(jnp.int32).max)
-    z = fused_linear_assign(
-        jnp.asarray(x, jnp.float32), lp - lq, base, seed,
-        tile_n=tile_n, k_tile=k_tile, interpret=interpret,
-    )
-    # fully-masked rows carry no likelihood: assign from the weights alone
-    g = jax.random.gumbel(km, (x.shape[0], logw.shape[0]))
-    z_prior = jnp.argmax(logw[None, :] + g, axis=-1).astype(jnp.int32)
-    z = jnp.where(jnp.asarray(mask) > 0, z, z_prior)
-
-    K = state.k_max
-    counts = jax.ops.segment_sum(
-        jnp.ones_like(z), z, num_segments=K
-    ).astype(jnp.int32)
-    m = jnp.asarray(mask, jnp.float32)
-    zi = jnp.where(m > 0, z, K)  # masked rows: counted, not accumulated
-    onehot = (zi[:, None] == jnp.arange(K)[None, :]).astype(jnp.float32)
-    stats = {
-        "n": jnp.sum(onehot, axis=0),
-        "heads": onehot.T @ jnp.asarray(x, jnp.float32),
-    }
-    return dataclasses.replace(
-        state, assignments=z, counts=counts, stats=(stats,)
-    )
+    return restat(state, data, z, thetas)

@@ -7,7 +7,7 @@ inference engine drives the abstract entity_state interface with:
   gibbs.hp(state, specs, rng)           grid Gibbs over feature hypers
   gibbs.assign_fixed(state, rng)        fixed-K variant
 
-TPU-native design (SURVEY.md §3.2): the reference's per-row Python/C++ loop
+Vectorized design (SURVEY.md §3.2): the reference's per-row Python/C++ loop
 with O(K·F) virtual calls becomes a single `lax.scan` over rows whose body
 is one fully vectorized [K_max]-slot scoring pass (CRP prior weights +
 batched posterior-predictive log-pdfs), Gumbel-argmax categorical choice,

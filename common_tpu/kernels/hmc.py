@@ -4,7 +4,7 @@ No reference analog: the reference ecosystem's non-conjugate kernels are
 MH/slice only (`kernels:microscopes/kernels/slice.pyx`, mh.pyx [MED]).
 HMC/NUTS is a north-star requirement (BASELINE.json: "NUTS/HMC ... for
 non-conjugate hypers, with ... step-size adaptation") and the natural
-TPU path: the leapfrog integrator is pure dense linear algebra, the whole
+Device path: the leapfrog integrator is pure dense linear algebra, the whole
 trajectory is a `lax.while_loop`/`scan` of fused XLA steps, and gradients
 come from `jax.grad` through the framework's own scoring functions
 (`marginal_loglik`, EPPF, `posterior_logpdf_unnorm`) — no hand-written

@@ -6,7 +6,7 @@ Reference analog: `kernels:microscopes/kernels/slice.pyx` —
   slice.hp(state, rng, hparams)     resample feature/cluster
                                     hyperparameters under continuous priors.
 
-TPU-native design: the univariate slice update is a pair of bounded
+Vectorized design: the univariate slice update is a pair of bounded
 `lax.while_loop`s (step-out, then shrink) — compiler-friendly control flow
 with a hard iteration cap — and is `vmap`ed across all K cluster slots at
 once for theta updates.  All targets are the framework's own pure scoring

@@ -17,7 +17,7 @@ All expectations (E[log p(x|θ)], KL(q‖prior)) come generically from the
 likelihoods' exponential-family structure via likelihoods/expfam.py —
 autodiff of each family's log-partition; nothing here is model-specific.
 The E-step is one [N|B, K] table per feature built by a single matmul
-(suffstats × expected natural params → MXU), making minibatch SVI the
+(suffstats × expected natural params → matrix units), making minibatch SVI the
 cheapest per-row kernel in the framework.
 
 The full-batch, ρ=1 special case is exact CAVI: coordinate ascent on the

@@ -1,6 +1,6 @@
 """Likelihood registry — pure-functional exponential-family model library.
 
-TPU-native rebuild of the reference's likelihood layer: the `distributions`
+JAX rebuild of the reference's likelihood layer: the `distributions`
 C++ library's Shared/Group model structs plus the adapter hierarchy in
 ``common:include/microscopes/models/``.  See ``base.py`` for the interface.
 """

@@ -1,4 +1,4 @@
-"""Likelihood interface — the TPU-native rebuild of the reference's model layer.
+"""Likelihood interface — the JAX rebuild of the reference's model layer.
 
 Reference analog: ``common:include/microscopes/models/base.hpp`` defines the
 abstract ``models::model`` (prior/shared side) and ``models::feature_group``
@@ -24,7 +24,7 @@ functions** over suffstat pytrees with a leading cluster axis ``[K, ...]``:
   - ``sample_params`` /      explicit-parameter path for uncollapsed/blocked
     ``logpdf`` /             Gibbs, slice, HMC/NUTS and posterior draws — the
     ``sample_value``         reference has no uncollapsed path; this is the
-                             TPU perf path (fully parallel [N, K] scoring).
+                             accelerator perf path (fully parallel [N, K] scoring).
 
 All functions are jit-safe, shape-static, and broadcast over arbitrary
 leading batch axes of ``stats`` (clusters, chains, particles).
@@ -131,7 +131,7 @@ class Likelihood:
         """[N, K] log-likelihood table for the blocked/uncollapsed path.
 
         Default: vmap of `logpdf` over rows. Override with a matmul
-        formulation where the MXU can be engaged (e.g. Gaussian quadratic
+        formulation where the matrix units can be engaged (e.g. Gaussian quadratic
         forms).  `theta` leaves have leading [K]; X is [N, ...]; mask [N].
         """
         per_row = jax.vmap(lambda x: self.logpdf(theta, x))(X)

@@ -3,16 +3,16 @@ columns in ONE feature.
 
 No single reference analog: the reference models a binary feature matrix
 as d separate scalar ``bb`` features (one BetaBernoulli group per column,
-`distributions:include/distributions/models/bb.hpp`), which on TPU would
+`distributions:include/distributions/models/bb.hpp`), which on an accelerator would
 mean d small python-level feature loops per sweep.  ``bbv`` is the
-TPU-native formulation of the same model — per-column (alpha, beta)
+vectorized formulation of the same model — per-column (alpha, beta)
 hypers, identical posterior — with all d columns scored in one
-matmul-shaped op so the [N, K] table rides the MXU:
+matmul-shaped op so the [N, K] table rides the matrix units:
 
     log p(x | p_k) = x · (log p_k − log(1−p_k)) + Σ_d log(1−p_kd)
 
-i.e. ``X @ W.T + b`` with W = logit(p), exactly the blocked/fused-kernel
-friendly form (see ops/linear_assign.py).
+i.e. ``X @ W.T + b`` with W = logit(p): one GEMM, whose Gumbel-add and
+argmax XLA fuses.
 
 Suffstats: (n [.,], heads [., d]).  Hyper: alpha [d], beta [d].
 """
@@ -110,7 +110,7 @@ class BBV(base.Likelihood):
         return jnp.sum(x * jnp.log(p) + (1.0 - x) * jnp.log1p(-p), axis=-1)
 
     def logpdf_batch(self, theta, X, mask):
-        # matmul form: X @ logit(p).T + Σ_d log(1-p)  → MXU
+        # matmul form: X @ logit(p).T + Σ_d log(1-p)  → one GEMM
         x = jnp.asarray(X, jnp.float32)
         lp = jnp.log(theta["p"])
         lq = jnp.log1p(-theta["p"])

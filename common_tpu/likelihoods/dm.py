@@ -102,7 +102,7 @@ class DM(base.Likelihood):
         return _log_multinomial_coef(xf) + jnp.sum(theta["logp"] * xf, axis=-1)
 
     def logpdf_batch(self, theta, X, mask):
-        # [N, C] @ [C, K] — a real matmul; MXU path for bag-of-words data
+        # [N, C] @ [C, K] — a real matmul for bag-of-words data
         xf = jnp.asarray(X, jnp.float32)
         out = _log_multinomial_coef(xf)[:, None] + xf @ theta["logp"].T
         return out * mask[:, None]

@@ -74,7 +74,7 @@ def expected_loglik_table(lik, hyper_p, hyper_q_k, X, mask):
     """[N, K] table of E_q[log p(x_n | theta_k)].
 
     Computed as T_x @ E[T] — one matmul over the flattened suffstat axis,
-    so the MXU carries the N×K work (cf. pred_logpdf's role in the
+    so the matrix units carry the N×K work (cf. pred_logpdf's role in the
     collapsed path).  hyper_p supplies family shape info for t(x).
     """
     et_k = expected_T_k(lik, hyper_q_k)  # leaves [K, ...]

@@ -5,11 +5,11 @@ Reference analog: `distributions:include/distributions/models/nw.hpp`
 score_data with per-group mean+scatter suffstats and Student-t predictive),
 surfaced through ``common:microscopes/models.py`` as the ``niw`` descriptor.
 
-TPU-native design: suffstats are exact sums ``(n, Σx, ΣxxT)`` with leading
+Vectorized design: suffstats are exact sums ``(n, Σx, ΣxxT)`` with leading
 cluster axis; the Student-t predictive and the marginal likelihood are
 computed for *all K clusters at once* from batched Cholesky factorizations
 (vmapped `jnp.linalg.cholesky` + triangular solves), and the uncollapsed
-path scores an [N, K] table via per-cluster matmuls that engage the MXU.
+path scores an [N, K] table via per-cluster matmuls.
 
 Hyperparameters (Murphy, "Conjugate Bayesian analysis of the Gaussian"):
   mu0 [D]   prior mean
@@ -39,6 +39,28 @@ def _chol_logdet(chol):
     return 2.0 * jnp.sum(jnp.log(jnp.diagonal(chol, axis1=-2, axis2=-1)), axis=-1)
 
 
+def scatter_product(a, b):
+    """aᵀ b for the scatter-matrix sums Σ w x xᵀ, accurate to ~2^-16.
+
+    A DEFAULT-precision f32 matmul runs in TF32 on the GPU, which drops
+    each input's low mantissa bits: every product shrinks by ~2^-11 on
+    average, so the error does not average down over rows (5.7e-4 of a
+    cluster's largest entry at 1M x 256, K = 64 on an H100) — for data far
+    from the origin a ~1% bias in the scatter about the mean.  Three bf16
+    passes (each input split into hi + lo; hi·hi + hi·lo + lo·hi, f32
+    sums) stay on the tensor cores at 1.4e-5 there, where full f32 is off
+    them and 2.2x slower than TF32 (PERF.md); on the CPU that algorithm
+    is plain f32.  XLA's CPU backend rejects it for a dot with a unit
+    output dimension (D = 1), so that case, and other dtypes, take a plain
+    `highest`-precision product.
+    """
+    if (a.dtype != jnp.float32 or b.dtype != jnp.float32
+            or 1 in (a.shape[-1], b.shape[-1])):
+        return jnp.matmul(a.T, b, precision="highest")
+    return jnp.matmul(a.T, b,
+                      precision=jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3)
+
+
 class NIW(base.Likelihood):
     name = "niw"
     conjugate = True
@@ -66,7 +88,7 @@ class NIW(base.Likelihood):
         return {"n": m, "sum_x": m * x, "sum_xxT": m * _outer(x, x)}
 
     def stats_from_assignments(self, hyper, X, mask, gid, K):
-        """Scatter-matrix suffstats via per-cluster matmuls (MXU path).
+        """Scatter-matrix suffstats via per-cluster matmuls.
 
         Never materializes [N, D, D]: sum_xxT[k] = Xᵀ diag(w_k) X with
         w_k the masked one-hot column of cluster k, computed as a scan of
@@ -80,15 +102,7 @@ class NIW(base.Likelihood):
         sum_x = jnp.matmul(onehot.T, X, precision="float32")
 
         def per_cluster(_, wk):
-            # TPU numerics note: the MXU's DEFAULT f32 matmul is a
-            # single-pass bf16 op (~0.4% input truncation, measured on
-            # v5e).  For this accumulation that is statistically benign:
-            # per-value truncation errors are ~uniform signed, so the
-            # relative error of an n-row cluster sum is ~0.4%/sqrt(n)
-            # (measured ~1e-4 at n=256), i.e. ~0.03 nat on the posterior
-            # logdet at D=256 — far below MC noise.  Strict mode:
-            # utils.debug.strict_matmul_precision() (costs ~2x).
-            return None, (X * wk[:, None]).T @ X
+            return None, scatter_product(X * wk[:, None], X)
 
         _, sum_xxT = jax.lax.scan(per_cluster, None, onehot.T)
         return {"n": n, "sum_x": sum_x, "sum_xxT": sum_xxT}
@@ -106,8 +120,7 @@ class NIW(base.Likelihood):
         sum_x = jnp.matmul(w.T, X, precision="float32")
 
         def per_cluster(_, wk):
-            # default precision: see stats_from_assignments numerics note
-            return None, (X * wk[:, None]).T @ X
+            return None, scatter_product(X * wk[:, None], X)
 
         _, sum_xxT = jax.lax.scan(per_cluster, None, w.T)
         return {"n": n, "sum_x": sum_x, "sum_xxT": sum_xxT}
@@ -262,8 +275,8 @@ class NIW(base.Likelihood):
         # d = 2); retry those slots with a relative diagonal jitter
         # (1e-5 · mean diag ≫ the f32 rounding that broke PSD-ness, and
         # statistically negligible on the affected extreme draws).  A
-        # QR-of-Mᵀ factorization would avoid the Gram matrix entirely but
-        # lowers poorly on TPU; cholesky is the proven-fast path.
+        # QR-of-Mᵀ factorization would avoid the Gram matrix entirely;
+        # that alternative has not been measured on the GPU.
         sigma = jnp.einsum("...ij,...kj->...ik", M, M)
         chol = _cholesky(sigma)
         bad = jnp.isnan(
@@ -290,8 +303,7 @@ class NIW(base.Likelihood):
         a NaN-retry third) only to produce a canonical triangular factor.
         Consumers that score via the quadratic form (kernels/blocked.py
         `sweep_chains`) don't need that factor, and the Cholesky chain is
-        the dominant fixed latency of a multi-chain sweep at small D
-        (measured round 4: ~0.30 ms of a 0.64 ms sweep at D=K=16).
+        a fixed latency of every multi-chain sweep at small D.
         """
         d = hyper["mu0"].shape[-1]
         post = self.posterior_hyper(hyper, stats)
@@ -312,14 +324,12 @@ class NIW(base.Likelihood):
         Li = solve_triangular(L, jnp.broadcast_to(eye, L.shape), lower=True)
         # Sigma^{-1} = (Aᵀ L⁻¹)ᵀ (Aᵀ L⁻¹) = Minvᵀ Minv with M = L A⁻ᵀ the
         # Bartlett covariance factor; Minv doubles as the precision
-        # square root (‖Minv (x−μ)‖² is the Mahalanobis form) for the
-        # fused Pallas assignment kernels.  Symmetrize for safety.
-        # f32 precision is load-bearing: consumers feed `prec` into an
-        # expanded quadratic form whose cancellation amplifies input
-        # error, and the TPU's default single-pass-bf16 einsum here
-        # corrupts P enough to visibly bias the sampler (measured round
-        # 4: a 4000-row cluster-recovery drive dropped from 1.00 to 0.79
-        # co-assignment agreement with default precision).
+        # square root (‖Minv (x−μ)‖² is the Mahalanobis form).
+        # Symmetrize for safety.  f32 precision is load-bearing:
+        # consumers feed `prec` into an expanded quadratic form whose
+        # cancellation amplifies input error; a reduced-precision (bf16)
+        # einsum here once cut a 4000-row cluster-recovery drive from
+        # 1.00 to 0.79 co-assignment agreement.
         minv = jnp.einsum("...ji,...jk->...ik", A, Li, precision="float32")
         prec = jnp.einsum(
             "...ji,...jk->...ik", minv, minv, precision="float32"
@@ -353,7 +363,7 @@ class NIW(base.Likelihood):
         )
 
     def logpdf_batch(self, theta, X, mask):
-        """[N, K] Gaussian log-likelihood table via per-cluster matmuls (MXU).
+        """[N, K] Gaussian log-likelihood table via per-cluster matmuls.
 
         For each cluster k:  y = (X - mu_k) @ L_k^{-T},  quad = rowsum(y^2).
         Implemented as a scan over K so peak memory stays [N, D].

@@ -88,7 +88,7 @@ def niw(dim: int) -> model_descriptor:
 def bbv(d: int) -> model_descriptor:
     """d independent Beta-Bernoulli binary columns as ONE vector feature.
 
-    The TPU-native encoding of the reference's "d scalar bb features"
+    The vectorized encoding of the reference's "d scalar bb features"
     pattern (config-2 binary feature matrices): identical posterior,
     per-column (alpha, beta) hypers, matmul-formulated scoring.
     """

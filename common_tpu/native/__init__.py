@@ -1,6 +1,6 @@
 """Native (C++) host-side components, loaded via ctypes.
 
-The TPU rebuild keeps inference on-device, so the host-native layer
+The JAX rebuild keeps inference on-device, so the host-native layer
 (reference: the whole C++ core) serves what still runs hot on the host:
 the exact-enumeration oracle machinery (partition enumeration /
 canonicalization / ranking).  Compiled on first use with g++ into a

@@ -3,7 +3,7 @@
 //
 // Reference analog: the reference keeps its hot host-side bookkeeping in
 // C++ (common:include/microscopes/common/group_manager.hpp et al.).  In
-// the TPU rebuild the *inference* hot path lives on-device (XLA/Pallas),
+// the JAX rebuild the *inference* hot path lives on-device (XLA/Pallas),
 // so the host-side native layer serves the piece that actually runs hot
 // on the host: the exact-enumeration test oracle
 // (common:microscopes/common/testutil.py, permutation_iter /

@@ -1,16 +1,17 @@
 """Device mesh construction for chain/data sharding.
 
 The reference has no distributed backend (SURVEY.md §2.3) — its only
-parallelism is multiprocessing multi-chain.  The TPU-native equivalent is
-a `jax.sharding.Mesh` with named axes
+parallelism is multiprocessing multi-chain.  The JAX equivalent is a
+`jax.sharding.Mesh` with named axes
 
   chains — independent MCMC chains (embarrassingly parallel; DP analog)
   data   — row sharding for likelihood + suffstat work (SP/FSDP analog)
 
 with all cross-device communication expressed as XLA collectives (`psum`
-of suffstats over `data`, diagnostics reductions over `chains`) riding ICI.
-Multi-host: call `jax.distributed.initialize()` before building the mesh
-(jax handles DCN transparently).
+of suffstats over `data`, diagnostics reductions over `chains`), which
+XLA hands to NCCL on GPUs.  The devices of one host are joined all to
+all, so the mesh shape follows the algorithm alone.  Multi-host: call
+`init_distributed` before building the mesh.
 """
 
 from __future__ import annotations
@@ -33,9 +34,6 @@ CHAINS, DATA = "chains", "data"
 _DIST_ENV_MARKERS = (
     "JAX_COORDINATOR_ADDRESS",
     "COORDINATOR_ADDRESS",
-    "MEGASCALE_COORDINATOR_ADDRESS",
-    "TPU_WORKER_HOSTNAMES",
-    "CLOUD_TPU_MULTIHOST",
 )
 
 
@@ -50,15 +48,14 @@ def init_distributed(
 ) -> int:
     """Initialize the multi-host JAX runtime; returns this process's index.
 
-    The multi-host entry point (SURVEY.md §2.3/§5.8): on a TPU pod slice
-    each host process calls this ONCE before any jax computation, then
-    builds meshes over `jax.devices()` (which now spans all hosts) via
-    `make_mesh`.  On TPU pods all three arguments are auto-detected from
-    the TPU metadata; pass them explicitly on other platforms.  Safe to
-    call in single-process runs with no distributed environment: that is
-    a no-op returning process 0.
+    The multi-host entry point (SURVEY.md §2.3/§5.8): each host process
+    calls this ONCE before any jax computation, then builds meshes over
+    `jax.devices()` (which now spans all hosts) via `make_mesh`.  Pass
+    all three arguments (`coordinator_address` as `host:port`); nothing
+    detects them on a GPU cluster.  Safe to call in single-process runs
+    with no distributed environment: that is a no-op returning process 0.
 
-    Failure policy (ADVICE.md round 3): an init error is swallowed ONLY
+    Failure policy: an init error is swallowed ONLY
     when the runtime is already initialized, or when nothing indicates a
     distributed job (no coordinator argument, no multi-process request,
     no coordinator env vars) — and even then a loud warning is emitted.

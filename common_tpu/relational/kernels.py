@@ -5,7 +5,7 @@ Gibbs drivers (`kernels:microscopes/kernels/gibbs.pyx`) through the
 entity_based_state_object interface, with irm's state supplying
 score_value over cluster-block suffstats.
 
-TPU-native design:
+Vectorized design:
   - `assign(state, views, key, domain=d)` — exact collapsed Gibbs over one
     domain's entities: a `lax.scan` over entities whose body scores ALL
     K_d candidate clusters at once by materializing the candidate's
@@ -355,9 +355,8 @@ def domain_alpha_escobar_west(
 ) -> IRMState:
     """Resample every domain's CRP concentration alpha | partition.
 
-    The per-domain analog of the mixture `ew_cluster_hp` kernel (VERDICT
-    round-1 gap: irm had no hyper kernels); each domain's partition gives
-    an independent Escobar–West draw.
+    The per-domain analog of the mixture `ew_cluster_hp` kernel; each
+    domain's partition gives an independent Escobar–West draw.
     """
     new_chps = []
     for d in range(state.ndomains):

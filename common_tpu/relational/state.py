@@ -7,7 +7,7 @@ tuples, driven through the same `entity_based_state_object` kernel
 interface.  Data arrives through `common`'s sparse_ndarray dataview
 (`common:include/microscopes/common/sparse_ndarray/dataview.hpp`).
 
-TPU-native design: every domain gets the padded-K treatment of the mixture
+Vectorized design: every domain gets the padded-K treatment of the mixture
 state (assignments [N_d], counts [K_d], alpha), and every relation keeps
 its suffstats as *dense cluster-block tensors* with shape [K_a, K_b, ...]
 (one slot per cluster tuple; empty blocks hold zero stats, which score 0

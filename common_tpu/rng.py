@@ -1,8 +1,8 @@
-"""PRNG key threading — the TPU-native analog of the reference's ``rng_t``.
+"""PRNG key threading — the JAX analog of the reference's ``rng_t``.
 
 The reference threads a single mt19937 ``rng_t`` (from the `distributions`
 library, wrapped in ``common:microscopes/common/_rng.pyx``) mutably through
-every sampling call. On TPU the analog is JAX's splittable counter-based
+every sampling call. In JAX the analog is JAX's splittable counter-based
 PRNG: a `jax.random` key threaded *functionally* through kernels, with a
 `fold_in` discipline so any (sweep, row) step is independently replayable —
 which is what makes checkpoint/resume bit-exact and multi-chip sharding
@@ -65,7 +65,7 @@ def fold_all(key, *ids):
 def gumbel_argmax(key, logits, axis=-1):
     """Sample from a categorical given (possibly -inf masked) log-weights.
 
-    The TPU-native analog of the reference's ``sample_discrete_log``
+    The JAX analog of the reference's ``sample_discrete_log``
     (distributions lib): instead of exp/normalize/linear-scan, draw Gumbel
     noise and take the argmax — branch-free, vectorizes over any batch.
     -inf logits are never selected (gumbel + -inf = -inf).

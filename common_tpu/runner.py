@@ -6,7 +6,7 @@ a dataview, an initialized latent state and a *kernel config* — an ordered
 list like ``[('assign', {}), ('grid_feature_hp', spec), ('theta', {})]`` —
 and applies each kernel once per iteration.
 
-TPU-native design: the whole iteration loop is one `lax.scan` under `jit`
+Vectorized design: the whole iteration loop is one `lax.scan` under `jit`
 (per-iteration keys via fold_in), optionally collecting the assignment
 vector and joint score trace on-device; multi-chain execution is a `vmap`
 over a batched state (see parallel/), not a multiprocessing pool.
@@ -176,9 +176,13 @@ def _irm_kernels() -> Dict[str, Callable]:
             "ew_domain_alpha": k_ew, "grid_domain_alpha": k_grid}
 
 
+def _device_arrays(data):
+    return jax.tree_util.tree_map(jnp.asarray, data)
+
+
 def _family_of(state):
     """(kernel registry, score_joint, counts, assignments, is_saturated,
-    default-kw hook) for the state's family."""
+    default-kw hook, data -> jit-argument pytree) for the state's family."""
     from common_tpu.relational.state import IRMState
     from common_tpu.topic.hdp import HDPState
 
@@ -190,6 +194,7 @@ def _family_of(state):
             assignments=lambda st: st.assignments,
             is_saturated=state_mod.is_saturated,
             default_kw=lambda data: {},
+            as_data=_device_arrays,
         )
     if isinstance(state, HDPState):
         from common_tpu.topic import hdp
@@ -215,6 +220,7 @@ def _family_of(state):
                 jnp.all(st.topic_total > 0), st.beta[-1] < 1e-3
             ),
             default_kw=default_kw,
+            as_data=_device_arrays,
         )
     if isinstance(state, IRMState):
         from common_tpu.relational import state as irm_state
@@ -229,6 +235,7 @@ def _family_of(state):
                 any(bool(jnp.all(c > 0)) for c in st.counts)
             ),
             default_kw=lambda data: {},
+            as_data=irm_state.as_views,
         )
     raise TypeError(f"no runner family for state type {type(state).__name__}")
 
@@ -250,7 +257,12 @@ def normalize_config(
 
 
 def make_step(kernel_config: Sequence, data, family=None) -> Callable:
-    """Compose a kernel config into one jit-able `step(state, key) -> state`."""
+    """Compose a kernel config into one jit-able `step(state, data, key)`.
+
+    `data` here only fills the family's default kernel arguments; the
+    step takes the data as an argument, so under jit it is an input of
+    the compiled program and not a constant baked into it (a 1 GB
+    dataset would otherwise sit inside the executable)."""
     if family is None:
         config = normalize_config(kernel_config)
         kernels = KERNELS
@@ -262,7 +274,7 @@ def make_step(kernel_config: Sequence, data, family=None) -> Callable:
         )
         kernels = family["kernels"]
 
-    def step(state, key):
+    def step(state, data, key):
         for i, (name, kw) in enumerate(config):
             state = kernels[name](state, data, jax.random.fold_in(key, i), **kw)
         return state
@@ -273,9 +285,9 @@ def make_step(kernel_config: Sequence, data, family=None) -> Callable:
 @partial(
     jax.jit, static_argnames=("step", "trace_fn", "niters", "collect_assignments")
 )
-def _run_scan(state, key, step, trace_fn, niters, collect_assignments):
+def _run_scan(state, data, key, step, trace_fn, niters, collect_assignments):
     def body(st, t):
-        st = step(st, jax.random.fold_in(key, t))
+        st = step(st, data, jax.random.fold_in(key, t))
         out = trace_fn(st, collect_assignments)
         return st, out
 
@@ -320,9 +332,9 @@ class runner:
     def __init__(self, defn, data, state, kernel_config,
                  jsonl_path: str | None = None):
         self._defn = defn
-        self._data = data
         self._state = state
         self._family = _family_of(state)
+        self._data = self._family["as_data"](data)
         self._config = normalize_config(
             kernel_config, self._family["kernels"]
         )
@@ -339,7 +351,8 @@ class runner:
     def run(self, key, niters: int = 1, collect: bool = True):
         validator.validate_positive(niters, "niters")
         self._state, trace = _run_scan(
-            self._state, key, self._step, self._trace_fn, int(niters), collect
+            self._state, self._data, key, self._step, self._trace_fn,
+            int(niters), collect,
         )
         if collect:
             import numpy as np
@@ -418,8 +431,9 @@ class runner:
 def run_chain(state, data, key, niters, kernel_config, collect_assignments=True):
     """Functional one-shot: returns (final_state, trace dict of [T, ...])."""
     family = _family_of(state)
+    data = family["as_data"](data)
     step = make_step(kernel_config, data, family)
     return _run_scan(
-        state, key, step, _make_trace_fn(family), int(niters),
+        state, data, key, step, _make_trace_fn(family), int(niters),
         collect_assignments,
     )

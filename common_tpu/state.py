@@ -1,4 +1,4 @@
-"""Clustering state — the TPU-native rebuild of the reference's bookkeeping.
+"""Clustering state — the JAX rebuild of the reference's bookkeeping.
 
 Reference analogs:
   - ``common:include/microscopes/common/group_manager.hpp`` —
@@ -9,7 +9,7 @@ Reference analogs:
     ``entity_based_state_object`` kernel interface
     (add_value/remove_value/score_value/score_assignment/score_likelihood).
 
-TPU-native design (SURVEY.md §2.2): dynamic group birth/death becomes a
+Vectorized design (SURVEY.md §2.2): dynamic group birth/death becomes a
 **fixed-capacity padded representation** with static shapes —
 ``assignments[N]`` (−1 = unassigned), ``counts[K_max]``, per-feature
 suffstat pytrees with leading ``[K_max]`` — so every operation is a masked

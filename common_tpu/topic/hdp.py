@@ -1,4 +1,4 @@
-"""HDP-LDA topic model — the `lda` sibling-repo capability, TPU-native.
+"""HDP-LDA topic model — the `lda` sibling-repo capability.
 
 Reference analog: the `lda` sibling repo (`lda:microscopes/lda/model.pyx`,
 `lda:src/lda/state.cpp` [MED]) implements HDP-LDA over `common`'s variadic
@@ -13,7 +13,7 @@ Model (truncated to K topics; truncation error vanishes for K ≫ K_active):
   phi_k       ~ Dirichlet(eta)              topic-word dists      [K, V]
   z_t | theta ~ Cat(theta_{d_t});  w_t | z ~ Cat(phi_{z_t})
 
-TPU-native design: the corpus is the variadic dataview's flat CSR layout
+Vectorized design: the corpus is the variadic dataview's flat CSR layout
 (tokens [T], doc_ids [T], mask [T]); all counts are segment-sums over the
 token axis, shardable along tokens.  Two samplers:
 
@@ -327,7 +327,7 @@ def sample_concentrations(
 
     The reference lda repo holds concentrations fixed per run but Teh et
     al. 2006's scheme (which it implements the state machinery for)
-    resamples them; this is the TPU-native version: one CRT draw of the
+    resamples them; this is the vectorized version: one CRT draw of the
     table counts m_dk feeds (i) the auxiliary-variable alpha move over
     docs, (ii) an Escobar–West gamma move over the top-level restaurant
     (m·· customers, K⁺ dishes), and (iii) the Dirichlet beta redraw —
@@ -354,10 +354,10 @@ def _draw_phi_theta(state: HDPState, key):
     phi = jax.random.dirichlet(kphi, state.topic_word + eta)        # [K, V]
     conc = state.doc_topic + alpha * state.beta[:K][None, :]
     # fixed-rounds Marsaglia-Tsang Dirichlet (utils/fastrand.py): the
-    # [D, K] theta draw is 32M small-shape gammas at config-4 scale and
-    # jax.random.dirichlet's rejection while_loop cost 0.54 s of the
-    # 1.23 s sweep (44%, measured round 4) — fastrand is ~10x cheaper
-    # and KS-validated to the same distribution (tests/test_fastrand.py)
+    # [D, K] theta draw is 32M small-shape gammas at config-4 scale;
+    # fastrand is ~10x cheaper than jax.random's rejection while_loop on
+    # an H100 and KS-validated to the same distribution
+    # (tests/test_fastrand.py)
     theta = fastrand.dirichlet(kth, conc)                            # [D, K]
     return phi, theta
 
@@ -433,8 +433,8 @@ def densify_corpus(view, max_len: "Optional[int]" = None):
     lens = _np.diff(ptr)
     D = len(lens)
     L = int(lens.max()) if max_len is None else int(max_len)
-    # One vectorized scatter (no per-doc Python loop — VERDICT round-3
-    # weak item 5: the loop cost minutes of host time at 1M docs): token
+    # One vectorized scatter (no per-doc Python loop, which costs minutes
+    # of host time at 1M docs): token
     # t of doc i lands at flat position i*L + (t - ptr[i]); a single
     # repeat builds that affine shift per token (~6 s at 1M docs / 50M
     # tokens on this box).  Truncation (max_len < longest doc) takes a
@@ -476,17 +476,17 @@ def blocked_sweep_dense(state: HDPState, words, mask, key,
     words/mask: [D, L] (docs padded to equal length; the state must have
     been initialized from `dense_token_data(words, mask)` so `state.z` is
     row-major-flat).  Identical sampler — same (phi, theta) draws, same
-    per-token conditional — but ~2x faster at config-4 scale (measured
-    2.89 s vs 6.1 s score+assign, 1.67 s vs 2.9 s counts at 1M docs x 50
-    tokens): the per-token theta gather (T rows) becomes a per-doc
-    broadcast, and doc_topic comes from a one-hot reduction over L
-    instead of a T-update scatter into D*K segments.  Peak memory is
+    per-token conditional — with the per-token theta gather (T rows)
+    turned into a per-doc broadcast, and doc_topic from a one-hot
+    reduction over L instead of a T-update scatter into D*K segments.
+    On an H100 at 100k docs x 50 tokens it is not the faster one (3.7 ms
+    against 2.9 ms for `blocked_sweep`; PERF.md).  Peak memory is
     [doc_chunk, L, K].
 
     doc_chunk=None derives a bounded chunk from (L, K): ~2^26 f32
     elements (256 MB) per intermediate tensor, so the default call stays
-    HBM-safe at any corpus size (ADVICE.md round 3: doc_chunk=D at the
-    config-4 scale materializes ~6.4 GB tensors).  Pass an explicit
+    HBM-safe at any corpus size (doc_chunk=D at the config-4 scale
+    materializes ~6.4 GB tensors).  Pass an explicit
     doc_chunk to trade memory for fewer scan steps.
     """
     D, L = words.shape

@@ -7,10 +7,10 @@ north-star requirement).  Mean-field family over a B-doc minibatch:
   q(theta_d) = Dirichlet(gamma_d)        local doc-topic        [B, K]
   q(z_dn)    = Cat(phi*)                 implicit (optimal form)
 
-TPU-native design: the per-doc E-step is expressed entirely as [B, K] x
+Vectorized design: the per-doc E-step is expressed entirely as [B, K] x
 [K, V] matmuls on dense bag-of-words count blocks — Hoffman's
 sparse-word trick trades FLOPs for gather-heavy control flow, which is
-exactly backwards on an MXU.  One inner iteration is
+exactly backwards on matrix units.  One inner iteration is
 
   norm  = exp(Elogtheta) @ exp(Elogbeta)            [B, V]
   gamma = alpha + exp(Elogtheta) * ((c / norm) @ exp(Elogbeta).T)

@@ -1,7 +1,7 @@
 """Debug / replay tiers (SURVEY.md §5.2's rebuild of the reference's
 sanitizer niche).
 
-The reference is single-threaded C++ with no sanitizer CI; the TPU-native
+The reference is single-threaded C++ with no sanitizer CI; the vectorized
 equivalents are:
 
   nan_check()      context: every compiled program output is checked for
@@ -67,17 +67,14 @@ def replay_key(key, *coords):
 
 @contextlib.contextmanager
 def strict_matmul_precision():
-    """Force f32x3 ("highest") matmul precision for every XLA dot.
+    """Force full-f32 ("highest") matmul precision for every XLA dot.
 
-    TPU numerics (measured on v5e, see BENCH_NOTES.md): the MXU's DEFAULT
-    f32 matmul is a single-pass bf16 op (~0.4% input truncation).  For
-    this library's samplers the perturbation is statistically benign
-    (suffstat accumulations average truncation error down with cluster
-    size; score-logit noise is ~0.1-0.3 nat at D=256, below the sampled
-    Gumbel noise), and the distributional TPU tests pass under it — but
-    bit-level reproducibility studies or reference comparisons can opt
-    into full precision here at ~2x matmul cost.  (The Pallas kernels
-    take their own `precision` argument.)
+    On the GPU a DEFAULT-precision f32 matmul runs in TF32 (10-bit
+    mantissa inputs), ~5e-4 relative per product.  Reproducibility
+    studies and reference comparisons can opt into full f32 here, off
+    the tensor cores.  Dots with an explicit precision keep it (the
+    scatter restat's bf16 passes in `niw.scatter_product`, the fused
+    assign kernel's TF32 dot).
     """
     import jax
 

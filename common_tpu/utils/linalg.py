@@ -1,10 +1,11 @@
-"""Batched dense linear algebra tuned for TPU (the Cholesky hot path).
+"""Batched dense linear algebra (the Cholesky hot path).
 
-XLA's `jnp.linalg.cholesky` processes a batch of matrices essentially
-sequentially on TPU — measured 33 us per [256, 256] matrix regardless of
-batch size (170 GFLOP/s, ~0.2% of peak; BENCH_NOTES.md round 4).  That
-made the NIW posterior-draw factorization the dominant cost of block-SMC
-at config-5 scale and a visible slice of the blocked-Gibbs headline.
+`cholesky_batched` exists for backends whose `jnp.linalg.cholesky`
+factors a batch of matrices one after another.  XLA's GPU Cholesky does
+not: on an H100 (700 W) it is the faster of the two — 0.62 ms against
+4.6 ms at [64, 256, 256] and 1.9 ms against 6.7 ms at [1024, 256, 256]
+(PERF.md).  Whether `cholesky` should keep dispatching here at all is an
+open ROADMAP item; this module is unchanged until that is decided.
 
 `cholesky_batched` is a right-looking PANEL algorithm expressed in plain
 XLA ops so every step is batch-parallel:
@@ -13,12 +14,11 @@ XLA ops so every step is batch-parallel:
     column steps (each step is [b, r]/[b, r, r] elementwise work across
     the WHOLE batch — no per-matrix loop);
   - the panel below solves against the diagonal factor with
-    `triangular_solve` (fast on TPU — 2.6 ms for [1024, 256, 256]);
-  - the trailing update A22 -= L21 L21ᵀ is a batched matmul (MXU).
+    `triangular_solve`;
+  - the trailing update A22 -= L21 L21ᵀ is a batched matmul.
 
-Measured: [1024, 256, 256] factors in ~4 ms vs 34.5 ms for
-`jnp.linalg.cholesky` (see tests/test_linalg.py for the agreement
-battery: random PSD batches, f64 reference, jitter edge cases).
+tests/test_linalg.py holds the agreement battery: random PSD batches,
+f64 reference, jitter edge cases.
 """
 
 from __future__ import annotations
@@ -94,9 +94,9 @@ def cholesky_batched(M, panel: int = 64):
         L21 = lax.linalg.triangular_solve(
             L11, below, left_side=False, lower=True, transpose_a=True,
         )
-        # trailing update: A22 -= L21 @ L21ᵀ  (batched MXU matmul;
-        # f32 precision — the result feeds further factorization steps
-        # and bf16 drift here compounds into the trailing panels)
+        # trailing update: A22 -= L21 @ L21ᵀ  (batched matmul; f32
+        # precision — the result feeds further factorization steps and
+        # reduced-precision drift here compounds into the trailing panels)
         if p + panel < D:
             A22 = A[:, p + panel:, p + panel:]
             A22 = A22 - jnp.einsum(
@@ -117,10 +117,10 @@ def cholesky_batched(M, panel: int = 64):
 
 
 def cholesky(M, panel: int = 64):
-    """Size-dispatching Cholesky: the blocked batch algorithm where it
-    wins (large batch x dim products — up to 10x XLA's on TPU), XLA's
-    native path for small problems (where LAPACK-style custom calls are
-    already fast, e.g. the CPU test tier)."""
+    """Size-dispatching Cholesky: the blocked batch algorithm for large
+    batch x dim products, XLA's native path for small problems (where
+    LAPACK-style custom calls are already fast, e.g. the CPU test tier).
+    See the module docstring for how the two compare on the H100."""
     import numpy as _np
 
     D = M.shape[-1]

@@ -1,7 +1,7 @@
 """Tracing/profiling utilities (SURVEY.md §5.1 rebuild).
 
 The reference has no profiling subsystem (a trivial RAII timer at most);
-the TPU-native replacement wraps `jax.profiler` for device traces and
+the JAX replacement wraps `jax.profiler` for device traces and
 provides kernel-throughput measurement with proper dispatch/compile
 separation — the plumbing behind the north-star sweeps/s and ESS/s
 numbers (bench.py).

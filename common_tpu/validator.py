@@ -1,6 +1,6 @@
 """Uniform argument validation.
 
-TPU-native rebuild of the reference's validation helpers
+JAX rebuild of the reference's validation helpers
 (``common:microscopes/common/validator.py``): every public API entry point
 across the framework funnels argument checking through these functions so
 error messages are uniform. Host-side only — never called under `jit`.

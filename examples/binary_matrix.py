@@ -1,6 +1,6 @@
 """Clustering an [n, d] binary feature matrix (BASELINE config 2).
 
-Uses the vector Beta-Bernoulli likelihood `bbv(d)` — the TPU-native
+Uses the vector Beta-Bernoulli likelihood `bbv(d)` — the vectorized
 packing of the reference's "d scalar bb features" pattern: identical
 posterior, per-column (alpha, beta) hypers, and the whole [N, K] score
 table computed as one matmul.  Hyperparameters are slice-sampled

@@ -1,6 +1,6 @@
 """Dirichlet-process mixture on synthetic 2-D Gaussians (BASELINE config 1).
 
-Run: python examples/dpmm.py   (~1 min on CPU; faster on TPU)
+Run: python examples/dpmm.py
 """
 
 import os

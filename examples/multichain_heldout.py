@@ -1,8 +1,8 @@
 """Multi-chain inference with convergence diagnostics and held-out scoring.
 
 Runs C independent blocked-Gibbs chains of a DPMM-NIW on ONE device via
-`blocked.sweep_chains` (the chain axis folded into wide matmuls — ~3.5x
-the vmapped-sweep throughput at 4 chains, BENCH_NOTES.md round 4),
+`blocked.sweep_chains` (the chain axis folded into wide matmuls at small
+D),
 computes split-R-hat / ESS over the joint-score traces, and reports the
 mean posterior-predictive log-likelihood of held-out rows
 (`state.heldout_logp` — the BASELINE quality metric) per chain.

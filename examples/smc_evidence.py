@@ -1,8 +1,8 @@
 """Block-SMC: posterior + marginal likelihood for a DPMM in one pass.
 
 Config-5 shape (BASELINE.md): rows absorbed in blocks of B with particle
-weights tracking the model evidence — O(N/B) device steps, so 1M rows is
-~250 steps (measured 215k rows/s on one TPU v5 lite chip at 1M x 64).
+weights tracking the model evidence — O(N/B) device steps, so 1M rows in
+blocks of 4096 is ~250 steps.
 
 Run: python examples/smc_evidence.py
 """

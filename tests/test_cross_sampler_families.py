@@ -1,6 +1,6 @@
 """Cross-sampler posterior agreement for the IRM and HDP families.
 
-Round-3 VERDICT item 6: DPMM already has a moderate-scale cross-sampler
+DPMM already has a moderate-scale cross-sampler
 agreement test (tests/test_cross_sampler.py); IRM and HDP each carry two
 independently-implemented samplers (exact collapsed Gibbs + blocked
 uncollapsed) that until now only agreed on tiny-n enumeration problems.

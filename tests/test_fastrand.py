@@ -1,6 +1,6 @@
 """Distributional validation of the fixed-rounds Gamma/Dirichlet sampler.
 
-utils/fastrand.py replaces jax.random.gamma in TPU-hot paths (the HDP
+utils/fastrand.py replaces jax.random.gamma in hot paths (the HDP
 theta draw); these tests pin it to the exact distribution: KS tests
 against scipy's gamma CDF across shapes spanning the boost branch
 (a < 1) and the plain branch, moment checks, and Dirichlet moments.

@@ -105,8 +105,8 @@ def test_summarize_traces():
 
 
 # ---------------------------------------------------------------------------
-# checkpoint coverage for every latent-state family (VERDICT.md items 5-7:
-# reference parity — group_manager::serialize covers mixture, irm, lda)
+# checkpoint coverage for every latent-state family (reference parity —
+# group_manager::serialize covers mixture, irm, lda)
 # ---------------------------------------------------------------------------
 def _assert_pytree_equal(a, b):
     la = jax.tree_util.tree_leaves(a)

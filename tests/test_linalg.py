@@ -1,7 +1,7 @@
 """Batched-panel Cholesky (utils/linalg.py) agreement battery.
 
 The blocked batch factorization replaces XLA's cholesky in the NIW hot
-paths (10x at [1024, 256, 256] on TPU); these tests pin it to XLA's
+paths at large batch x dim; these tests pin it to XLA's
 semantics: factor agreement across shapes/panels, padding path, NaN
 propagation on non-PSD input, and the size dispatcher.
 """

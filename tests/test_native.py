@@ -147,8 +147,7 @@ def test_csv_loader_crlf(tmp_path):
 
     Regression: count_cols once read a trailing '\\r' as field content /
     an extra field, so CRLF files failed with a misleading 'ragged rows'
-    error on the native path while the numpy fallback accepted them
-    (ADVICE.md round 3)."""
+    error on the native path while the numpy fallback accepted them."""
     import numpy as np
 
     from common_tpu.io import load_csv_f32

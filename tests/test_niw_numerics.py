@@ -1,4 +1,4 @@
-"""NIW numerics hardening tiers (SURVEY.md §7 "NIW numerics on TPU f32").
+"""NIW numerics hardening tiers (SURVEY.md §7 "NIW numerics", f32).
 
 - f64-oracle tolerance tier: after thousands of incremental f32
   add/remove cycles at d=64, per-cluster marginals must still match the
@@ -186,3 +186,21 @@ def test_f64_tier_marginal_comparison():
         }
         got64 = float(niw_lik.marginal_loglik(hyper64, stats64))
     assert abs(got32 - got64) < 1e-4 * abs(got64) + 0.1, (got32, got64)
+
+
+@pytest.mark.parametrize("d", [1, 3, 64])
+def test_scatter_product_matches_float64(d):
+    """The restat's scatter product against float64, on data far from the
+    origin (where a biased product error would not average down); d = 1
+    takes the plain-precision branch."""
+    from common_tpu.likelihoods.niw import scatter_product
+
+    r = np.random.default_rng(d)
+    X = (4.0 + r.normal(size=(3000, d))).astype(np.float32)
+    w = (r.random(3000) < 0.5).astype(np.float32)
+    got = np.asarray(jax.jit(scatter_product)(
+        jnp.asarray(X * w[:, None]), jnp.asarray(X)), np.float64)
+    X64 = X.astype(np.float64)
+    want = (X64 * w[:, None]).T @ X64
+    assert got.shape == (d, d)
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-4

@@ -205,7 +205,7 @@ def test_multichain_hdp_and_irm():
 
 
 def test_init_distributed_failure_policy(monkeypatch):
-    """ADVICE.md round 3: init failures only degrade to single-process
+    """Init failures only degrade to single-process
     when no distributed environment is detectable — and loudly."""
     import warnings
 

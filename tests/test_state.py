@@ -242,7 +242,7 @@ def test_masked_rows_excluded_from_stats():
 
 
 # ---------------------------------------------------------------------------
-# K_max overflow policy (SURVEY.md §7 hard parts; VERDICT.md item 4)
+# K_max overflow policy (SURVEY.md §7 hard parts)
 # ---------------------------------------------------------------------------
 def test_saturation_detection_and_repad():
     import dataclasses
